@@ -28,7 +28,6 @@ import sys
 import time
 
 import numpy as np
-import pandas as pd
 
 sys.path.insert(0, ".")
 
@@ -46,7 +45,8 @@ def synthetic_era5(nt=16, ny=96, nx=120, seed=0):
     rng = np.random.RandomState(seed)
     lats = np.linspace(-40.0, 15.0, ny)
     lons = np.linspace(-90.0, -32.0, nx)
-    times = pd.date_range("2020-01-20", periods=nt, freq="6h").values
+    times = (np.datetime64("2020-01-20T00:00", "ns")
+             + np.arange(nt) * np.timedelta64(6, "h"))
     LON, LAT = np.meshgrid(lons, lats)
     t = np.arange(nt)[:, None, None]
     jet = 250.0 * np.exp(-((LAT + 15.0 - 3 * np.sin(2 * np.pi * t / nt))

@@ -1,7 +1,7 @@
 """Ideal-vortex validation workload — the de-facto acceptance test.
 
 Re-creation of the reference's example driver
-(/root/reference/examples/ideal_vortex.py:211-403) on the TPU-native stack:
+(the reference's examples/ideal_vortex.py:211-403) on this library's stack:
 
 * build the Rankine-like moving vortex flow (testing/flows.py);
 * advect a dye tracer forward and backward through the flow (the reference's

@@ -1,4 +1,4 @@
-"""lagrangiancoherence_tpu — TPU-native Lagrangian Coherent Structures.
+"""lagrangiancoherence_tpu — Lagrangian Coherent Structures in JAX.
 
 From-scratch JAX re-design of the capability surface of
 gabrielmpp/LagrangianCoherence (see /root/reference and SURVEY.md): SETTLS

@@ -3,7 +3,7 @@
 ``LCS`` reproduces the constructor/call contract of the reference class
 (/root/reference/LCS/LCS.py:19-168) and ``parcel_propagation`` that of the
 reference integrator entry point (/root/reference/LCS/trajectory.py:8-18),
-but everything below the argument parsing is the TPU-native core: labeled
+but everything below the argument parsing is the jitted JAX core: labeled
 coordinates stop at this file; the pipeline body is jitted JAX over plain
 arrays and the static ``Grid`` struct.
 
@@ -19,8 +19,9 @@ Differences from the reference, by design:
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
-import pandas as pd
 
 from .field import Field, as_field
 from .grid import Grid
@@ -31,7 +32,14 @@ from .ops.sht import truncate as sht_truncate
 from .utils.logging import configure_verbosity, logger, timed_stage
 
 __all__ = ["LCS", "parcel_propagation", "flowmap_gradient", "latlonsel",
-           "create_arrays_list"]
+           "create_arrays_list", "float_dtype"]
+
+
+def float_dtype() -> np.dtype:
+    """The float dtype the library computes in: float64 when JAX's x64
+    mode is enabled, float32 otherwise (the accelerator serving dtype)."""
+    import jax
+    return np.dtype(jax.dtypes.canonicalize_dtype(np.float64))
 
 
 def create_arrays_list(field, groupdim: str = "points"):
@@ -76,18 +84,45 @@ def _extract_uv(ds, u, v, timedim: str) -> tuple[Field, Field]:
     return u.transpose(*order), v.transpose(*order)
 
 
+_FREQ_UNITS = {"D": "D", "h": "h", "H": "h", "min": "m", "T": "m",
+               "s": "s", "S": "s", "ms": "ms", "us": "us", "ns": "ns"}
+
+
+def _parse_freq(freq: str) -> np.timedelta64:
+    """Fixed-length pandas frequency string (``"3h"``, ``"1D"``,
+    ``"30min"``, ...) → ``timedelta64``."""
+    m = re.fullmatch(r"\s*(\d*)\s*([A-Za-z]+)\s*", freq)
+    if m is None or m.group(2) not in _FREQ_UNITS:
+        raise ValueError(f"unsupported resample frequency {freq!r}; use a "
+                         f"fixed-length one such as '3h', '1D' or '30min'")
+    return np.timedelta64(int(m.group(1) or 1), _FREQ_UNITS[m.group(2)])
+
+
+def _resample_labels(times: np.ndarray, freq: str) -> np.ndarray:
+    """Bin labels of pandas ``Series.resample(freq).asfreq()``: multiples of
+    ``freq`` counted from the start of the first time's day (pandas'
+    default ``origin='start_day'``), from the bin holding ``times[0]`` to
+    the bin holding ``times[-1]``."""
+    times = np.asarray(times, dtype="datetime64[ns]")
+    step = _parse_freq(freq).astype("timedelta64[ns]")
+    origin = times[0].astype("datetime64[D]").astype("datetime64[ns]")
+    first = (times[0] - origin) // step
+    last = (times[-1] - origin) // step
+    return origin + np.arange(first, last + 1) * step
+
+
 def _resample_linear(f: Field, freq: str, timedim: str) -> Field:
     """Linear-in-time resample onto a regular frequency
     (xarray ``resample().interpolate('linear')`` semantics,
     /root/reference/LCS/LCS.py:88-91).
 
-    Bin labels come from pandas ``resample`` itself (origin = start of day,
-    not ``times[0]``), so records that do not start on a bin edge align the
+    Bin labels follow pandas ``resample`` (origin = start of day, not
+    ``times[0]``), so records that do not start on a bin edge align the
     way the reference's xarray resample does; labels outside the record's
     time span interpolate to NaN, matching scipy ``interp1d`` with
     ``bounds_error=False`` underneath xarray."""
-    times = pd.to_datetime(f.coords[timedim])
-    new_times = pd.Series(0.0, index=times).resample(freq).asfreq().index
+    times = np.asarray(f.coords[timedim], dtype="datetime64[ns]")
+    new_times = _resample_labels(times, freq)
     t_src = times.view("int64").astype(np.float64)
     t_dst = new_times.view("int64").astype(np.float64)
     ax = f.axis(timedim)
@@ -103,7 +138,7 @@ def _resample_linear(f: Field, freq: str, timedim: str) -> Field:
         out[oob] = np.nan
     data = out.reshape((t_dst.size,) + data.shape[1:])
     data = np.moveaxis(data, 0, ax)
-    coords = {**f.coords, timedim: new_times.values}
+    coords = {**f.coords, timedim: new_times}
     return Field(data=data, dims=f.dims, coords=coords, name=f.name)
 
 
@@ -135,30 +170,10 @@ def latlonsel(field: Field, latitude=None, longitude=None,
 # parcel_propagation — reference signature facade over the scan core
 # ---------------------------------------------------------------------------
 
-def _resolve_kernel(kernel: str, interp_order: int = 3) -> str:
-    """``auto`` → the pallas fast path on TPU-class backends, the XLA gather
-    path elsewhere (CPU gathers are fast; TPU gathers are ~100x too slow —
-    see ops/pallas_interp.py).  The pallas kernel implements spline orders
-    {1, 3} (the orders the reference's workflows use); ``auto`` falls back
-    to the XLA path for the other scipy orders (0, 2, 4, 5), and an
-    explicit ``kernel='pallas'`` raises in models/settls.py."""
-    if kernel != "auto":
-        return kernel
-    if interp_order not in (1, 3):
-        return "xla"
-    import jax
-    try:
-        platform = jax.devices()[0].platform
-    except Exception:
-        return "xla"
-    return "xla" if platform == "cpu" else "pallas"
-
-
 def parcel_propagation(U, V, timestep: float = 1, propdim: str = "time",
                        verbose: bool = True, return_traj: bool = False,
                        SETTLS_order: int = 0, copy: bool = False,
-                       interp_order: int = 3, cyclic_xboundary: bool = False,
-                       kernel: str = "auto"):
+                       interp_order: int = 3, cyclic_xboundary: bool = False):
     """Two-time-level semi-Lagrangian advection, reference contract
     (/root/reference/LCS/trajectory.py:8-144).
 
@@ -182,42 +197,31 @@ def parcel_propagation(U, V, timestep: float = 1, propdim: str = "time",
         times = times[::-1]  # labels reverse; storage order does not (Q2)
 
     with timed_stage("Parcel propagation"):
-        import jax.numpy as jnp
-        dtype = np.float64 if jnp.zeros(()).dtype == jnp.float64 else \
-            np.float32
-        out = parcel_propagation_core(
+        dtype = float_dtype()
+        px, py = parcel_propagation_core(
             np.asarray(U.data, dtype=dtype),
             np.asarray(V.data, dtype=dtype),
             float(timestep), grid,
             settls_order=int(SETTLS_order),
             interp_order=int(interp_order),
             return_traj=return_traj,
-            kernel=_resolve_kernel(kernel, int(interp_order)),
-            return_overflow=True,
             # per-step progress lines, as the reference's verboseprint
             # (/root/reference/LCS/trajectory.py:81) — async host callback,
             # gated off with verbose=False to keep the scan callback-free
             progress=bool(verbose))
-        *pos, overflow = out
-        px, py = pos
-        if int(np.asarray(overflow)):
-            logger.warning(
-                "pallas interpolation windows clamped some taps (extreme "
-                "shear); affected tiles are approximate — re-run with "
-                "kernel='xla' or larger windows for exact values")
         px = np.asarray(px)
         py = np.asarray(py)
 
     coords2d = {"latitude": lats, "longitude": lons}
     if return_traj:
         # 360-day-calendar guard (/root/reference/LCS/trajectory.py:129-130):
-        # pd.to_datetime cannot represent cftime.Datetime360Day labels, so
+        # datetime64 cannot represent cftime.Datetime360Day labels, so
         # trajectories cannot carry them (type-name check — cftime is an
         # optional dependency and may not be installed)
         assert type(times[0]).__name__ != "Datetime360Day", (
             "Cannot return trajectories with time coordinates "
             "cftime.Datetime360Day.")
-        tcoord = np.asarray(pd.to_datetime(times))
+        tcoord = np.asarray(times, dtype="datetime64[ns]")
         dims = (propdim, "latitude", "longitude")
         fx = Field(px, dims, {**coords2d, propdim: tcoord}, name="positions_x")
         fy = Field(py, dims, {**coords2d, propdim: tcoord}, name="positions_y")
@@ -288,9 +292,9 @@ class LCS:
         if isinstance(resample, str):
             u = _resample_linear(u, resample, timedim)
             v = _resample_linear(v, resample, timedim)
-            tvals = pd.to_datetime(u.coords[timedim])
+            tvals = np.asarray(u.coords[timedim], dtype="datetime64[ns]")
             timestep = float(np.sign(timestep)) * float(
-                (tvals[1] - tvals[0]).total_seconds())
+                (tvals[1] - tvals[0]) / np.timedelta64(1, "s"))
 
         u = u.sortby("latitude").sortby("longitude")
         v = v.sortby("latitude").sortby("longitude")

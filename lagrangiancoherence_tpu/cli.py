@@ -49,9 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--truncation", type=int, default=20)
     p.add_argument("--interp-order", type=int, default=3,
                    choices=(0, 1, 2, 3, 4, 5),
-                   help="spline order (scipy map_coordinates parity; the "
-                        "pallas TPU path accelerates 1/3 and the API falls "
-                        "back to the exact XLA kernel for the rest)")
+                   help="spline order (scipy map_coordinates parity)")
     p.add_argument("--resample", default=None,
                    help="time-resample frequency, e.g. 3h")
     p.add_argument("--gauss-sigma", type=float, default=None)

@@ -1,4 +1,4 @@
-"""Flow-map deformation gradient and FTLE norm — fused TPU pipeline.
+"""Flow-map deformation gradient and FTLE norm — one fused jitted stage.
 
 Re-designs /root/reference/LCS/LCS.py:142-157,171-225: instead of xarray
 merge/stack/dropna plus a per-point LAPACK SVD (``scipy.linalg.norm(ord=2)``),

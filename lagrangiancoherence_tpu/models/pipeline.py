@@ -20,39 +20,19 @@ __all__ = ["ftle_pipeline"]
 
 
 @partial(jax.jit, static_argnames=("grid", "settls_order", "interp_order",
-                                   "sigma", "compat", "kernel", "rebin", "pallas_wy",
-                                   "pallas_wx",
-                                   "pallas_retry_tiles", "pallas_retry_wy",
-                                   "pallas_engine", "return_overflow"))
+                                   "sigma", "compat"))
 def ftle_pipeline(u: jax.Array, v: jax.Array, timestep, grid: Grid, *,
                   settls_order: int = 0, interp_order: int = 3,
-                  sigma=None, compat: bool = True, kernel: str = "xla",
-                  rebin="auto", pallas_wy: int = 32, pallas_wx: int = 256,
-                  pallas_retry_tiles: int = 256,
-                  pallas_retry_wy: int = 64,
-                  pallas_engine: str = "auto",
-                  return_overflow: bool = False):
+                  sigma=None, compat: bool = True):
     """(T, ny, nx) winds → (ny, nx) FTLE norm, fully fused.
 
     Semantics identical to ``LCS.__call__``'s core path (quirks Q1-Q6
     included); see models/settls.py and models/ftle.py for the stage
-    contracts.  ``kernel="pallas"`` selects the TPU fast path
-    (ops/pallas_interp.py); with ``return_overflow=True`` the window
-    overflow flag is returned alongside the field.
+    contracts.
     """
-    out = parcel_propagation_core(u, v, timestep, grid,
-                                  settls_order=settls_order,
-                                  interp_order=interp_order,
-                                  return_traj=False, kernel=kernel,
-                                  rebin=rebin,
-                                  pallas_wy=pallas_wy, pallas_wx=pallas_wx,
-                                  pallas_retry_tiles=pallas_retry_tiles,
-                                  pallas_retry_wy=pallas_retry_wy,
-                                  pallas_engine=pallas_engine,
-                                  return_overflow=True)
-    px, py, overflow = out
+    px, py = parcel_propagation_core(u, v, timestep, grid,
+                                     settls_order=settls_order,
+                                     interp_order=interp_order,
+                                     return_traj=False)
     tensor = flowmap_gradient(px, py, grid, sigma=sigma)
-    norm = ftle_norm(tensor, compat=compat)
-    if return_overflow:
-        return norm, overflow
-    return norm
+    return ftle_norm(tensor, compat=compat)

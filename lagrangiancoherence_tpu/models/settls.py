@@ -1,11 +1,12 @@
 """SETTLS two-time-level semi-Lagrangian parcel advection (Hortal 2002).
 
-TPU-native re-design of the reference's integrator
+Re-design of the reference's integrator
 (/root/reference/LCS/trajectory.py:8-144): the Python time loop with per-step
 scipy ``map_coordinates`` calls becomes one ``lax.scan`` over the time axis,
-with the wind fields cubic-prefiltered **once** up front (two MXU matmuls per
-slice) and each step evaluating ``2 + 4*SETTLS_order`` fused gather-interp
-kernels over the whole parcel grid.
+with the wind fields cubic-prefiltered **once** up front (two dense matmuls
+per slice) and each step evaluating ``1 + SETTLS_order`` multi-field gather
+groups (``2 + 4*SETTLS_order`` field interpolations) over the whole parcel
+grid.
 
 Reference semantics replicated exactly (SURVEY.md quirks):
 
@@ -24,7 +25,6 @@ Reference semantics replicated exactly (SURVEY.md quirks):
 """
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -34,7 +34,20 @@ import numpy as np
 from ..grid import EARTH_RADIUS, Grid
 from ..ops.interp import interp_at_parcels_multi, prefilter
 
-__all__ = ["parcel_propagation_core", "settls_scan"]
+__all__ = ["parcel_propagation_core", "settls_scan", "conv_x_factor"]
+
+
+def conv_x_factor(lats) -> np.ndarray:
+    """(rows, 1) m/s → deg/s longitude factor ``conv_y / |cos(lat)|`` on the
+    parcels' home latitudes (the reference's LCS/trajectory.py:54-57),
+    evaluated in float64 on the host.  Every program (single-device or
+    sharded) casts these same values to its dtype: a factor computed on
+    the device, or constant-folded by the compiler, can differ in the last
+    bit between programs, and the scan amplifies that into visibly
+    different float32 trajectories."""
+    conv_y = 180.0 / (EARTH_RADIUS * np.pi)
+    lat = np.asarray(lats, dtype=np.float64)
+    return (conv_y / np.abs(np.cos(lat * (np.pi / 180.0))))[:, None]
 
 
 def _progress_step(t, nsteps):
@@ -44,232 +57,6 @@ def _progress_step(t, nsteps):
     ``jax.debug.callback`` — async, so it never stalls the device."""
     from ..utils.logging import logger
     logger.info("Propagating time index %d/%d", int(t) + 1, int(nsteps))
-
-
-def _sort_lat():
-    """|lat| >= this: rows whirl (1/cos metric) -> sort-bin.  Trace-time
-    env knob LCS_SORT_LAT: widening the band (smaller value) pulls the
-    sub-band whirl rows (1/cos ~ 2 at 60 deg) into sorted storage, at
-    one more lax.sort row-block per band."""
-    return float(os.environ.get("LCS_SORT_LAT", "60"))
-
-
-def _sort_k():
-    """Re-bin every K steps (trace-time env knob LCS_SORT_K; K=1 keeps
-    slot windows tightest at one extra lax.sort per step)."""
-    return max(1, int(os.environ.get("LCS_SORT_K", "2")))
-
-
-def _sort_bx():
-    """Spatial key block width in cells (LCS_SORT_BX; smaller = tighter
-    per-slot x spans, more quarter-window-eligible tiles)."""
-    return max(1, int(os.environ.get("LCS_SORT_BX", "32")))
-# consolidated escalation ladder for sort-binned runs: group-pinned
-# x-sorting leaves y spans as-stored (<=~50) and collapses x spans, so a
-# cheap y-tier plus wide/full-x tiers cover everything.  Capacities are
-# generous: under the manual-DMA engine dead slots are FREE (live-only
-# fori_loop), and the first on-device sort run with the old tight caps
-# (128/64/96/24/32/8) overflowed mid-scan (flag 0x6 — uncovered tiles
-# keep clamped values), corrupting positions by hundreds of cells.
-_SORT_LADDER = ((64, 256, 512), (32, 512, 256), (64, 512, 256),
-                (32, None, 96), (64, None, 96), (192, None, 32))
-
-
-def _sort_ladder():
-    """Sort-mode escalation ladder, overridable per process with
-    LCS_SORT_LADDER (JSON [[wy, wx|null, cap], ...]) for on-device cap
-    tuning — the generic LCS_LADDER hook only applies when the ladder
-    argument is None, which sort mode never passes."""
-    import json
-    import os
-    env = os.environ.get("LCS_SORT_LADDER")
-    if env:
-        return tuple((int(w), None if x is None else int(x), int(c))
-                     for w, x, c in json.loads(env))
-    return _SORT_LADDER
-
-
-def _sort_bands(grid: Grid, order: int):
-    """Static (row0, nrows) of the south/north sort-binned latitude bands.
-
-    Rows with ``|lat| >= _SORT_LAT`` excluding the ``order`` pole-home rows
-    (which must stay pinned for the order-1/'constant' pole path — the
-    pallas and XLA kernels key that path on storage row position).  Band
-    starts are rounded UP to the next TILE_R(=8) multiple and lengths
-    truncated to TILE_R multiples, so the sorted 8-row rank groups
-    coincide exactly with the pallas kernel's (8, 128) home tiles (a
-    non-aligned start would make every in-band kernel tile straddle two
-    sort groups, defeating the locality the sort exists to create)."""
-    lat = np.asarray(grid.lats)
-    ny = lat.shape[0]
-    polar = np.abs(lat) >= _sort_lat()
-    bands = []
-    s_hi = int(np.searchsorted(lat, -_sort_lat(), side="right"))
-    n_lo = int(np.searchsorted(lat, _sort_lat(), side="left"))
-    r0_s = -(-order // 8) * 8          # first 8-aligned row >= order
-    len_s = ((s_hi - r0_s) // 8) * 8
-    if polar[0] and len_s >= 8:
-        bands.append((r0_s, len_s))
-    r0_n = -(-n_lo // 8) * 8           # first 8-aligned row >= n_lo
-    len_n = ((ny - order - r0_n) // 8) * 8
-    if polar[-1] and len_n >= 8:
-        bands.append((r0_n, len_n))
-    return bands
-
-
-def _to_tile_storage(flat, nrows, nx):
-    """Rank-ordered flat array -> (nrows, nx) storage such that each
-    kernel tile ((8, 128) home block, the last x tile possibly partial)
-    holds CONSECUTIVE ranks — pure reshape/transpose, no gather."""
-    gy = nrows // 8
-    nxc = nx // 128
-    rem = nx - nxc * 128
-    a2 = flat.reshape(gy, 8 * nx)
-    main = (a2[:, :nxc * 1024].reshape(gy, nxc, 8, 128)
-            .transpose(0, 2, 1, 3).reshape(gy, 8, nxc * 128))
-    if rem:
-        tail = a2[:, nxc * 1024:].reshape(gy, 8, rem)
-        main = jnp.concatenate([main, tail], axis=-1)
-    return main.reshape(nrows, nx)
-
-
-def _anchored_cells(xi, nx):
-    """Seam-aware per-8-row-group cell index: ``xi`` (int32 cells in
-    [0, nx)) relative to the group's circular-mean longitude, shifted by
-    half a period so the anchor sits mid-key-range and a narrow parcel
-    arc never straddles the key wrap (rationale in _sort_bin_bands)."""
-    g = xi.shape[0] // 8
-    ang = xi.astype(jnp.float32) * jnp.float32(2.0 * np.pi / nx)
-    s = jnp.sin(ang).reshape(g, -1).mean(axis=1)
-    c = jnp.cos(ang).reshape(g, -1).mean(axis=1)
-    anc = jnp.floor(jnp.arctan2(s, c) * jnp.float32(nx / (2.0 * np.pi)))
-    anc = jnp.mod(anc.astype(jnp.int32), nx)                  # (g,)
-    return jnp.mod(xi - jnp.repeat(anc, 8)[:, None] + nx // 2, nx)
-
-
-def _sort_bin_bands(arrs, px, py, bands, grid: Grid):
-    """Sort each band's parcels into spatial-tile storage order.
-
-    ``arrs``: tuple of (ny, nx) arrays to permute identically (positions,
-    per-parcel conv factor, the int32 un-sort permutation).  Parcels are
-    PINNED to their 8-row storage group (so tile y spans never exceed the
-    as-stored drift the ladder already handles, and parcels that wander
-    out of the band in latitude cannot poison a tile's y window) and
-    sorted within the group by the _SORT_BX-cell longitude block of the
-    CURRENT position — a storage tile (1024 consecutive ranks of one
-    group) then holds one narrow longitude range regardless of how far
-    the whirl has smeared the group around the circle.
-
-    The longitude key is SEAM-AWARE: block indices are taken relative to
-    a per-group circular-mean anchor (shifted half a period so the
-    anchor sits mid-key-range), not mod-nx absolute position.  An
-    absolute key splits a group whose parcel arc crosses the periodic
-    seam into the two ends of the sorted order, leaving one storage tile
-    holding both ends — a full-longitude unwrap span that forces the
-    kernel's full-x escalation tier (measured: ~33 such tiles per late
-    flagship step ~= one per polar group, tools/census_binned.py); the
-    kernel's own windows are anchored-unwrap and handle a narrow arc
-    wherever it sits, so keying in the same anchored space keeps every
-    pure-arc tile quarter-window-eligible."""
-    ny, nx = grid.shape
-    sx = nx / (grid.x_max - grid.x_min)
-    nbx = -(-nx // _sort_bx())
-    out = list(arrs)
-    for r0, nr in bands:
-        sl = slice(r0, r0 + nr)
-        xi = jnp.mod(jnp.floor(sx * (px[sl] - grid.x_min)),
-                     nx).astype(jnp.int32)
-        group = jax.lax.broadcasted_iota(jnp.int32, (nr, nx), 0) // 8
-        rel = _anchored_cells(xi, nx)
-        key = (group * nbx + rel // _sort_bx()).ravel()
-        segs = [a[sl].ravel() for a in out]
-        sorted_ = jax.lax.sort([key] + segs, num_keys=1, is_stable=True)
-        for i, s in enumerate(sorted_[1:]):
-            out[i] = out[i].at[sl].set(_to_tile_storage(s, nr, nx))
-    return tuple(out)
-
-
-def _shard_sortable_groups(home_rows, grid: Grid, order: int):
-    """Per-8-row-group boolean: every storage row's HOME row is polar
-    (``|lat| >= _SORT_LAT``) and none is a pole-home row (the order-1/
-    'constant' pole path keys on storage rows — those must stay pinned).
-
-    Sharded blocks can't use static band slicing (each shard sees
-    different global rows, but shard_map traces ONE program), so the
-    shard path sorts a single band of all complete 8-row groups and
-    keys the non-sortable groups to identity order instead
-    (see ``_sort_bin_shard``).  ``home_rows``: (rows, 1) traced int32
-    global home row per storage row — mirror-pad replica rows carry
-    their reflected source row and classify like it."""
-    ny = grid.shape[0]
-    hr = home_rows[:, 0]
-    lat = jnp.take(jnp.asarray(grid.lats), jnp.clip(hr, 0, ny - 1))
-    ok_row = (jnp.abs(lat) >= _sort_lat()) & (hr >= order) \
-        & (hr < ny - order)
-    n8 = (hr.shape[0] // 8) * 8
-    return jnp.all(ok_row[:n8].reshape(-1, 8), axis=1)       # (n8/8,)
-
-
-def _sort_bin_shard(arrs, px, sortable, grid: Grid):
-    """Sharded-block variant of ``_sort_bin_bands``: one band spanning all
-    complete 8-row groups, with per-group behaviour decided by the traced
-    ``sortable`` mask.  Every group is sorted by the _SORT_BX-cell
-    longitude block of the current position (the same group-pinned
-    spatial-tile key as the single-chip path) in ONE ``lax.sort``; the
-    non-sortable groups (pole-home / non-polar rows, which must keep
-    their storage identity) then SELECT their original layout back —
-    identity cannot ride the sort key itself, because the tile-major
-    relayout of ``_to_tile_storage`` permutes even rank-ordered groups."""
-    ny, nx = grid.shape
-    sx = nx / (grid.x_max - grid.x_min)
-    nr = (px.shape[0] // 8) * 8
-    out = list(arrs)
-    sl = slice(0, nr)
-    xi = jnp.nan_to_num(jnp.mod(jnp.floor(sx * (px[sl] - grid.x_min)),
-                                nx), nan=0.0, posinf=0.0,
-                        neginf=0.0).astype(jnp.int32)
-    group = jax.lax.broadcasted_iota(jnp.int32, (nr, nx), 0) // 8
-    xkey = _anchored_cells(xi, nx) // _sort_bx()    # seam-aware, see
-    key = (group * nx + xkey).ravel()               # _sort_bin_bands
-    segs = [a[sl].ravel() for a in out]
-    sorted_ = jax.lax.sort([key] + segs, num_keys=1, is_stable=True)
-    keep = sortable[group]                 # (nr, nx) bool
-    for i, s in enumerate(sorted_[1:]):
-        binned = _to_tile_storage(s, nr, nx)
-        out[i] = out[i].at[sl].set(jnp.where(keep, binned, out[i][sl]))
-    return tuple(out)
-
-
-def _unsort_shard(arrs, perm, nrows8):
-    """Invert the cumulative shard sort: order by the carried
-    original-linear-index payload (covers sorted and identity groups
-    alike).  The tile-storage relayout of ``_sort_bin_shard`` is a pure
-    permutation of the band, so sorting by the original index restores
-    the exact pre-sort layout."""
-    out = list(arrs)
-    sl = slice(0, nrows8)
-    nx = arrs[0].shape[-1]
-    segs = [a[sl].ravel() for a in out]
-    sorted_ = jax.lax.sort([perm[sl].ravel()] + segs, num_keys=1,
-                           is_stable=True)
-    for i, s in enumerate(sorted_[1:]):
-        out[i] = out[i].at[sl].set(s.reshape(nrows8, nx))
-    return tuple(out)
-
-
-def _unsort_bands(arrs, perm, bands, grid: Grid):
-    """Invert the cumulative sort-binning: per band, sort by the carried
-    original-linear-index payload."""
-    ny, nx = grid.shape
-    out = list(arrs)
-    for r0, nr in bands:
-        sl = slice(r0, r0 + nr)
-        segs = [a[sl].ravel() for a in out]
-        sorted_ = jax.lax.sort([perm[sl].ravel()] + segs, num_keys=1,
-                               is_stable=True)
-        for i, s in enumerate(sorted_[1:]):
-            out[i] = out[i].at[sl].set(s.reshape(nr, nx))
-    return tuple(out)
 
 
 def _clamp_wrap(px, py, *, y_min, y_max, x_min, x_max, cyclic_x):
@@ -285,468 +72,89 @@ def _clamp_wrap(px, py, *, y_min, y_max, x_min, x_max, cyclic_x):
     return px, py
 
 
+
+
 def settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid: Grid, *,
                 settls_order: int, interp_order: int, return_traj: bool,
-                row_offset=0, home_rows=None, kernel: str = "xla",
-                debug_per_step: bool = False, progress: bool = False,
-                rebin="auto", pole_seed=None,
-                pallas_wy: int = 32, pallas_wx: int = 256,
-                pallas_retry_tiles: int = 256,
-                pallas_retry_wy: int = 64,
-                pallas_engine: str = "auto"):
+                home_rows=None, progress: bool = False):
     """The SETTLS time loop as one ``lax.scan`` over a position *block*.
 
     ``u``/``v``: full (T, ny, nx) winds; ``cu``/``cv``: their prefiltered
     coefficients.  ``px0``/``py0``: (rows, nx) initial positions whose home
-    rows start at global row ``row_offset`` (traced OK — shards pass their
-    offset).  ``conv_x``: (rows, 1) per-home-latitude m/s→deg/s factor.
-    Shared by the single-chip jit and the shard_map per-device block.
+    rows are grid rows 0.. or, for a shard's block, are given per row by
+    ``home_rows`` ((rows, 1) traced int array).
+    ``conv_x``: (rows, 1) per-home-latitude m/s→deg/s factor.  Shared by
+    the single-device jit and the shard_map per-device block.
 
     Hot-path structure: all fields needed at one set of positions evaluate
     through a single multi-field gather — one gather group for the Euler
     guess (u_t, v_t) and one per SETTLS iteration (u, v at both time
     levels), sharing the fold/mirror/weight index math across fields.
 
-    ``kernel`` selects the gather implementation: ``"xla"`` (plain
-    ``jnp.take`` gathers — exact, fast on CPU, slow on TPU) or ``"pallas"``
-    (ops/pallas_interp.py windowed one-hot-matmul kernel; TPU fast path;
-    works on full grids and on sharded latitude blocks via ``home_rows``).
-
-    Returns ``(positions..., overflow)`` where ``overflow`` is an int32
-    scalar — nonzero when the pallas windows clamped any tap (always 0 for
-    the XLA kernel).
+    Returns the final ``(px, py)`` or, with ``return_traj``, the
+    (T, rows, nx) position stacks including the initial positions.
     """
-    if kernel == "pallas" and interp_order not in (1, 3):
-        raise NotImplementedError(
-            f"kernel='pallas' implements spline orders 1 and 3 (the orders "
-            f"the reference's workflows use — /root/reference/LCS/LCS.py:51);"
-            f" got interp_order={interp_order}.  Use kernel='xla' (or "
-            f"'auto', which falls back to it) for scipy orders 0/2/4/5.")
     dtype = u.dtype
     conv_y = jnp.asarray(180.0 / (EARTH_RADIUS * np.pi), dtype=dtype)
     bounds = dict(y_min=grid.y_min, y_max=grid.y_max,
                   x_min=grid.x_min, x_max=grid.x_max, cyclic_x=grid.cyclic_x)
-    hoist_pole = hoist_shard = False
-
-    # (A per-row cyclic roll-barrel "rebin=True" layout predated
-    # sort-binning; it measured a loser on device — per-row compaction
-    # converts cheap x-escalations into y-escalations, scan 1899 ->
-    # 2137 ms — and was removed.  Git history has the substrate.)
-    nx_g = grid.shape[1]
-    # sort-binning (see _sort_bin_bands): periodically re-sort the polar
-    # bands' parcels into spatial-tile storage order.  Collapses the
-    # full-longitude escalation tiers the whirl band otherwise forces
-    # (measured: full-x tiles 116 -> ~33 at the flagship's final steps,
-    # tools/census_binned.py).  Single-chip pallas full-grid final-
-    # positions path only; the un-sort permutation rides the carry.
-    sort_ok = (kernel == "pallas" and home_rows is None
-               and px0.shape == grid.shape
-               and not debug_per_step)
-    sort_bands = _sort_bands(grid, interp_order) if sort_ok else []
-    # sharded (home_rows) full-width latitude blocks sort too: the
-    # +21.5% 1-dev shard_map overhead (tools/probe_sharded.py) was the
-    # measured sort-vs-nosort delta, paid because the static band slicing
-    # above can't know a shard's rows.  The shard variant sorts one band
-    # of all complete 8-row groups with a traced per-group sortable mask
-    # (see _sort_bin_shard) — no cross-shard exchange, same group-pinned
-    # key.
-    shard_sort_ok = (kernel == "pallas" and home_rows is not None
-                     and px0.ndim == 2 and px0.shape[-1] == nx_g
-                     and px0.shape[0] >= 8 and not debug_per_step)
-    if rebin == "auto":
-        # device A/B (tools/probe_sort.py, v5e 2026-08-19, dma-all engine):
-        # sort 1501 ms/field vs off 1804 — sort-binning is the default
-        # wherever it applies (sort_ok); non-qualifying paths fall through
-        # to the plain layout below.
-        rebin = "sort"
-    if rebin not in ("sort", False):
-        raise ValueError(f"rebin={rebin!r}: expected 'auto', 'sort' or "
-                         f"False (the roll-barrel rebin=True path was "
-                         f"removed after it measured a loser on device)")
-    sort_mode = rebin == "sort" and sort_ok and bool(sort_bands)
-    shard_sort_mode = rebin == "sort" and shard_sort_ok and not sort_mode
-    if shard_sort_mode:
-        shard_sortable = _shard_sortable_groups(home_rows, grid,
-                                                interp_order)
-        shard_nr8 = (px0.shape[0] // 8) * 8
-        sort_mode = True            # shared carry/step structure below
-
-        def _do_sort(px, py, cvx, perm):
-            return _sort_bin_shard((px, py, cvx, perm), px,
-                                   shard_sortable, grid)
-
-        def _do_unsort(arrs, perm):
-            return _unsort_shard(arrs, perm, shard_nr8)
-    elif sort_mode:
-        def _do_sort(px, py, cvx, perm):
-            return _sort_bin_bands((px, py, cvx, perm), px, py,
-                                   sort_bands, grid)
-
-        def _do_unsort(arrs, perm):
-            return _unsort_bands(arrs, perm, sort_bands, grid)
-
     W = jnp.stack([u, v], axis=1)      # (T, 2, ny, nx)
     CW = jnp.stack([cu, cv], axis=1)
 
-    if kernel == "pallas":
-        from ..ops.pallas_interp import (POLE_PAD, TILE_C, TILE_R,
-                                         pad_coeffs_for_pallas,
-                                         pallas_interp_multi,
-                                         resolve_engine)
-        pallas_engine = resolve_engine(pallas_engine)
-        ny, nx = grid.shape
-        T = u.shape[0]
-        # resident stacks, windowed by TIME inside the kernels' block
-        # specs (f0 = first field index = 2*t): no per-step dynamic
-        # slicing/concat of the ~200 MB padded coefficients — formerly
-        # ~100 ms/field of pure HBM copying on the flagship.  Every
-        # engine uses the 5-slab lane-shifted-copy layout (Mosaic
-        # requires provably-128-divisible HBM lane starts; kernel.rst).
-        CWP = pad_coeffs_for_pallas(CW)
-        CWP = CWP.reshape(CWP.shape[0], T * 2, *CWP.shape[3:])
-        ny_tf = -(-ny // TILE_R) * TILE_R       # pole-path raw padding
-        nx_t = -(-nx // TILE_C) * TILE_C
-        # prepadded-raw contract (pallas_interp_multi): pad rows are
-        # y-WRAP replicas (row ny+k = row k mod ny) feeding the merged
-        # N+S pole block's south-seam remap — NOT zeros
-        W_flat = W.reshape(T * 2, ny, nx)
-        pr = ny_tf + POLE_PAD - ny
-        W_wrap = jnp.take(W_flat, jnp.arange(pr) % ny, axis=1)
-        W_p = jnp.pad(jnp.concatenate([W_flat, W_wrap], axis=1),
-                      ((0, 0), (0, 0), (0, nx_t - nx)))
+    def interp_multi(fields, coeffs, px, py):
+        return interp_at_parcels_multi(
+            fields, coeffs, px, py,
+            x_min=grid.x_min, x_max=grid.x_max,
+            y_min=grid.y_min, y_max=grid.y_max,
+            order=interp_order, home_rows=home_rows)
 
-        # sharded blocks: window routing is position-only; the pole-row
-        # special case locates its candidate rows from the traced GLOBAL
-        # home rows directly (see pallas_interp_multi).
+    def slices(t):
+        return (jax.lax.dynamic_index_in_dim(W, t, 0, keepdims=False),
+                jax.lax.dynamic_index_in_dim(CW, t, 0, keepdims=False))
 
-        def pallas_gather(t, px, py, nf, home_rows=home_rows, **kw):
-            # the MXU contraction's N dim is F*WY, quantised at 128: the
-            # F=2 Euler gathers get WY=64 base windows for free, halving
-            # their y-escalations.  ``home_rows`` default-captures the
-            # block's rows; pole-block calls override it with None (the
-            # replicated pole block is globally addressed).
-            wy_eff = max(pallas_wy, 128 // nf)
-            return pallas_interp_multi(
-                W_p, CWP, px, py, ny=ny, nx=nx,
-                y_min=grid.y_min, y_max=grid.y_max,
-                x_min=grid.x_min, x_max=grid.x_max,
-                order=interp_order, wy=wy_eff, wx=pallas_wx,
-                retry_tiles=pallas_retry_tiles,
-                retry_wy=pallas_retry_wy,
-                home_rows=home_rows,
-                ladder=_sort_ladder() if sort_mode else None,
-                engine=pallas_engine,
-                f0=2 * t, nf=nf, raw_prepadded=True, **kw)
-
-        # (A fused-SETTLS-iterate engine — all settls_order iterations in
-        # ONE launch, per-(tile, iterate) routed from predicted
-        # positions — was built twice and DELETED round 4: the first
-        # design lost on device (3436 vs 1363 ms/field, spread-expanded
-        # windows), the second under-predicted its iterate windows
-        # (overflow 0xa0 on the flagship, slack 16,32), and the premise
-        # died with the round-4 re-measurement — the per-launch floor it
-        # amortises is 0.34 ms/group at HEAD (probe_slotbody
-        # empty-nokern, 2026-08-21), not the ~3.1 it was designed
-        # against, while the per-iterate ROUTING it must keep runs in
-        # XLA either way.  Git history has both designs.)
-
-        # Hoisted per-step pole loop: the pole machinery inside each
-        # gather (sorted point lists: argsort + 4 permutation gathers +
-        # unsort scatter, ~1 ms/group of XLA glue — tools/probe_trace
-        # round 3) runs 2+settls_order times per step.  Instead, sort the
-        # 2*order pole-home rows ONCE per step, keep them in sorted flat
-        # layout across the step's gathers (pole_block=True,
-        # pole_presorted=True — sortp becomes identity inside), iterate
-        # their Q3/Q5 updates in sorted space, and write them back at
-        # step end.  The main gathers run with skip_pole=True (their
-        # pole-row outputs are garbage and overwritten here).
-        hoist_pole = (interp_order > 0 and home_rows is None
-                      and px0.shape == grid.shape
-                      and ny > 2 * interp_order
-                      and os.environ.get("LCS_POLE_HOIST", "1") == "1")
-
-        # (A routing-REUSE path — iterate 2..K re-launching the engine
-        # with iterate-1's cached slot lists behind a routing_guard +
-        # lax.cond re-route — was built, proven bit-identical, and
-        # measured a 162 ms/field LOSER on v5e 2026-08-20: the per-group
-        # guard + 4 cond sites/step cost more than the ~1 ms/group of
-        # routing they skip, and the conds break XLA's cross-group
-        # scheduling.  Deleted round 4; git history has the substrate.)
-        # Sharded blocks get the same hoist (the measured +27.5% 1-dev
-        # shard gap was dominated by the in-gather pole machinery the
-        # single-chip path hoisted away — tools/probe_sharded.py,
-        # ROUND4_NOTES): the 2*order pole-home rows are integrated
-        # REPLICATED on every shard (winds are replicated, the block is
-        # (2*order, nx) — trivial compute), and each shard writes back
-        # only the rows it owns (mask/slot from the traced home_rows).
-        # ``pole_seed`` supplies the pole rows' initial mesh positions +
-        # conv factor (parallel/pipeline.py), since a shard's px0 block
-        # does not contain other shards' rows.
-        hoist_shard = (interp_order > 0 and home_rows is not None
-                       and pole_seed is not None
-                       and px0.ndim == 2 and px0.shape[-1] == nx_g
-                       and ny > 2 * interp_order
-                       and os.environ.get("LCS_POLE_HOIST", "1") == "1")
-        if hoist_pole or hoist_shard:
-            from ..ops.pallas_interp import (pole_apply_perm,
-                                             pole_sort_state,
-                                             pole_unsort_rows)
-            pole_geom = dict(order=interp_order, nx=nx)
-            pole_scale = dict(order=interp_order, ny=ny, nx=nx,
-                              y_min=grid.y_min, y_max=grid.y_max,
-                              x_min=grid.x_min, x_max=grid.x_max)
-            # dma-all: the sorted pole lists ride the MAIN engine launch
-            # as three extra sections (ops/pallas_interp._engine_layout)
-            # — the standalone pole launch paid the per-launch floor
-            # 2+settls_order times per step.  Other engines keep the
-            # two-launch hoist.
-            pole_merged = pallas_engine == "dma-all"
-
-            def gather_with_pole(t, px_, py_, nf, pxp_, pyp_):
-                if pole_merged:
-                    return pallas_gather(t, px_, py_, nf,
-                                         pole_lists=(pxp_, pyp_))
-                arr_, fl_ = pallas_gather(t, px_, py_, nf,
-                                          skip_pole=True)
-                valsp_, flp_ = pallas_gather(t, pxp_, pyp_, nf,
-                                             home_rows=None,
-                                             pole_block=True,
-                                             pole_presorted=True)
-                return arr_, valsp_, fl_ | flp_
-        if hoist_pole:
-            pole_rows = np.r_[0:interp_order, ny - interp_order:ny]
-        if hoist_shard:
-            pxp0_seed = jnp.asarray(pole_seed[0], dtype)
-            pyp0_seed = jnp.asarray(pole_seed[1], dtype)
-            cxp0_home = jnp.broadcast_to(
-                jnp.asarray(pole_seed[2], dtype), pxp0_seed.shape)
-            hr_vec = home_rows[:, 0].astype(jnp.int32)
-            shard_pole_mask = ((hr_vec < interp_order)
-                               | (hr_vec >= ny - interp_order))[:, None]
-            shard_pole_slot = jnp.clip(
-                jnp.where(hr_vec < interp_order, hr_vec,
-                          hr_vec - (ny - 2 * interp_order)),
-                0, 2 * interp_order - 1)
-
-    else:
-        def interp_multi(fields_coeffs_0, fields_coeffs_1, px, py):
-            out = interp_at_parcels_multi(
-                fields_coeffs_0, fields_coeffs_1, px, py,
-                x_min=grid.x_min, x_max=grid.x_max,
-                y_min=grid.y_min, y_max=grid.y_max,
-                order=interp_order, row_offset=row_offset,
-                home_rows=home_rows)
-            return out, jnp.zeros((), jnp.int32)
-
-        def slices(t):
-            return (jax.lax.dynamic_index_in_dim(W, t, 0, keepdims=False),
-                    jax.lax.dynamic_index_in_dim(CW, t, 0, keepdims=False))
-
-    def step(carry, t, rebin_step="cond"):
+    def step(carry, t):
         if progress:
             jax.debug.callback(_progress_step, t, u.shape[0] - 1,
                                ordered=False)
-        if hoist_shard:
-            *carry, pxp_h, pyp_h = carry
-        if sort_mode:
-            px, py, cvx, perm, flag = carry
-        else:
-            px, py, flag = carry
-
-        if sort_mode:
-            # periodic re-bin BEFORE the step's gathers: every gather of
-            # this step then sees at most K-step-stale storage locality.
-            # ``rebin_step`` is STATIC (True/False) when the scan body
-            # unrolls _sort_k() steps per iteration — the data-dependent
-            # lax.cond alternative measured ~60 ms/field of cond+branch
-            # machinery on the flagship (probe_trace 2026-08-20: cond
-            # 37.6 ms n=352 + branch 22.7 ms) and survives only as the
-            # fallback for nsteps not divisible by K.
-            if rebin_step == "cond":
-                def do_sort(px, py, cvx, perm):
-                    return _do_sort(px, py, cvx, perm)
-
-                def no_sort(px, py, cvx, perm):
-                    return (px, py, cvx, perm)
-
-                px, py, cvx, perm = jax.lax.cond(
-                    jnp.mod(t, _sort_k()) == 0, do_sort, no_sort,
-                    px, py, cvx, perm)
-            elif rebin_step:
-                px, py, cvx, perm = _do_sort(px, py, cvx, perm)
-            cx = cvx
-        else:
-            cx = conv_x
+        px, py = carry
 
         # Euler first guess from winds at the current positions
         # (/root/reference/LCS/trajectory.py:82-87)
-        if kernel == "pallas" and hoist_pole:
-            # per-step sorted pole state (see hoist_pole above)
-            perm_p, inv_p = pole_sort_state(px[pole_rows], py[pole_rows],
-                                            **pole_scale)
-            pxp = pole_apply_perm(px[pole_rows], perm_p, **pole_geom)
-            pyp = pole_apply_perm(py[pole_rows], perm_p, **pole_geom)
-            cx_rows = cx[pole_rows] if cx.shape == px.shape \
-                else jnp.broadcast_to(cx, px.shape)[pole_rows]
-            cxp = pole_apply_perm(cx_rows.astype(dtype), perm_p,
-                                  **pole_geom)
-            arr, valsp, fl = gather_with_pole(t, px, py, 2, pxp, pyp)
-        elif kernel == "pallas" and hoist_shard:
-            # replicated pole block (home layout in the carry) → sorted
-            # flat per-side lists, exactly the single-chip hoist
-            perm_p, inv_p = pole_sort_state(pxp_h, pyp_h, **pole_scale)
-            pxp = pole_apply_perm(pxp_h, perm_p, **pole_geom)
-            pyp = pole_apply_perm(pyp_h, perm_p, **pole_geom)
-            cxp = pole_apply_perm(cxp0_home, perm_p, **pole_geom)
-            arr, valsp, fl = gather_with_pole(t, px, py, 2, pxp, pyp)
-        elif kernel == "pallas":
-            arr, fl = pallas_gather(t, px, py, 2)
-        else:
-            A_t, B_t = slices(t)
-            A_n, B_n = slices(t + 1)
-            arr, fl = interp_multi(A_t, B_t, px, py)
-        flag = flag | fl
-        ua, va = arr[0], arr[1]
+        A_t, B_t = slices(t)
+        ua, va = interp_multi(A_t, B_t, px, py)
         py = py + dt * conv_y * va
-        px = px + dt * cx * ua
+        px = px + dt * conv_x * ua
         px, py = _clamp_wrap(px, py, **bounds)
-        if kernel == "pallas" and (hoist_pole or hoist_shard):
-            uap, vap = valsp[0], valsp[1]
-            pyp = pyp + dt * conv_y * vap
-            pxp = pxp + dt * cxp * uap
-            pxp, pyp = _clamp_wrap(pxp, pyp, **bounds)
 
         # SETTLS fixed-point iterations, cumulative form (Q3)
         # (/root/reference/LCS/trajectory.py:100-124)
-        if settls_order and kernel != "pallas":
+        if settls_order:
+            A_n, B_n = slices(t + 1)
             A_tn = jnp.concatenate([A_t, A_n], axis=0)
             B_tn = jnp.concatenate([B_t, B_n], axis=0)
-        for it_k in range(settls_order):
-            if kernel == "pallas" and (hoist_pole or hoist_shard):
-                # the (u, v) pairs at t and t+1 are adjacent in the
-                # resident (T*2, ...) stacks: one 4-field window at 2*t
-                dep, depp, fl = gather_with_pole(t, px, py, 4, pxp, pyp)
-            elif kernel == "pallas":
-                dep, fl = pallas_gather(t, px, py, 4)
-            else:
-                dep, fl = interp_multi(A_tn, B_tn, px, py)
-            flag = flag | fl
-            u_t_d, v_t_d, u_n_d, v_n_d = dep[0], dep[1], dep[2], dep[3]
+        for _ in range(settls_order):
+            u_t_d, v_t_d, u_n_d, v_n_d = interp_multi(A_tn, B_tn, px, py)
             py = py + 0.5 * dt * conv_y * (va + 2.0 * v_t_d - v_n_d)
-            px = px + 0.5 * dt * cx * (ua + 2.0 * u_t_d - u_n_d)
+            px = px + 0.5 * dt * conv_x * (ua + 2.0 * u_t_d - u_n_d)
             px, py = _clamp_wrap(px, py, **bounds)
-            if kernel == "pallas" and (hoist_pole or hoist_shard):
-                pyp = pyp + 0.5 * dt * conv_y * (
-                    vap + 2.0 * depp[1] - depp[3])
-                pxp = pxp + 0.5 * dt * cxp * (
-                    uap + 2.0 * depp[0] - depp[2])
-                pxp, pyp = _clamp_wrap(pxp, pyp, **bounds)
 
-        if kernel == "pallas" and hoist_pole:
-            # write the pole rows back into home layout for the carry
-            px = px.at[pole_rows].set(
-                pole_unsort_rows(pxp, inv_p, **pole_geom))
-            py = py.at[pole_rows].set(
-                pole_unsort_rows(pyp, inv_p, **pole_geom))
-        elif kernel == "pallas" and hoist_shard:
-            # back to home layout; the block keeps the full replicated
-            # pole state in its carry and writes back only the rows it
-            # owns (mask/slot are in storage order — pole-home groups
-            # are never permuted by the shard sort)
-            pxp_h = pole_unsort_rows(pxp, inv_p, **pole_geom)
-            pyp_h = pole_unsort_rows(pyp, inv_p, **pole_geom)
-            px = jnp.where(shard_pole_mask,
-                           jnp.take(pxp_h, shard_pole_slot, axis=0), px)
-            py = jnp.where(shard_pole_mask,
-                           jnp.take(pyp_h, shard_pole_slot, axis=0), py)
-
-        if return_traj:
-            if sort_mode:
-                # each stored step must be in home-storage layout: undo
-                # the cumulative band sort on a COPY of the positions
-                # (one cheap lax.sort per band; the carry stays binned)
-                opx, opy = _do_unsort((px, py), perm)
-            else:
-                opx, opy = px, py
-            out = (opx, opy, flag) if debug_per_step else (opx, opy)
-        else:
-            out = flag if debug_per_step else None
-        if sort_mode:
-            carry = (px, py, cvx, perm, flag)
-        else:
-            carry = (px, py, flag)
-        if hoist_shard:
-            carry = carry + (pxp_h, pyp_h)
-        return carry, out
+        return (px, py), ((px, py) if return_traj else None)
 
     nsteps = u.shape[0] - 1
-    flag0 = jnp.zeros((), jnp.int32)
-    carry0 = (px0, py0, flag0)
-    if sort_mode:
-        shp = px0.shape             # == grid.shape single-chip; the
-        conv_pc = jnp.broadcast_to(conv_x, shp).astype(dtype)  # block else
-        perm0 = jax.lax.broadcasted_iota(jnp.int32, shp, 0) \
-            * nx_g + jax.lax.broadcasted_iota(jnp.int32, shp, 1)
-        carry0 = (px0, py0, conv_pc, perm0, flag0)
-    if hoist_shard:
-        carry0 = carry0 + (pxp0_seed, pyp0_seed)
-    K_s = _sort_k()
-    if sort_mode and nsteps % K_s == 0 and nsteps > 0:
-        # K-step-unrolled scan body: the re-bin runs UNCONDITIONALLY at
-        # sub-step 0 of each iteration, eliminating the per-step
-        # lax.cond on the mod-K predicate (see step()'s rebin_step note)
-
-        def blk(carry, ts):
-            outs = []
-            for j in range(K_s):
-                carry, o = step(carry, ts[j], rebin_step=(j == 0))
-                outs.append(o)
-            if outs[0] is None:
-                return carry, None
-            return carry, jax.tree_util.tree_map(
-                lambda *a: jnp.stack(a), *outs)
-
-        carry, traj = jax.lax.scan(
-            blk, carry0, jnp.arange(nsteps).reshape(-1, K_s))
-        if traj is not None:
-            traj = jax.tree_util.tree_map(
-                lambda a: a.reshape(nsteps, *a.shape[2:]), traj)
-    else:
-        carry, traj = jax.lax.scan(step, carry0, jnp.arange(nsteps))
-    if sort_mode:
-        px, py, _cvx, perm, flag = carry[:5]
-        px, py = _do_unsort((px, py), perm)
-    else:
-        px, py, flag = carry[:3]
-    if debug_per_step and not return_traj:
-        return px, py, traj  # (nsteps,) cumulative per-step flags
-
+    (px, py), traj = jax.lax.scan(step, (px0, py0), jnp.arange(nsteps))
     if return_traj:
-        traj_x, traj_y = traj[0], traj[1]
-        traj_x = jnp.concatenate([px0[None], traj_x], axis=0)
-        traj_y = jnp.concatenate([py0[None], traj_y], axis=0)
-        return traj_x, traj_y, flag
-    return px, py, flag
+        traj_x = jnp.concatenate([px0[None], traj[0]], axis=0)
+        traj_y = jnp.concatenate([py0[None], traj[1]], axis=0)
+        return traj_x, traj_y
+    return px, py
 
 
 @partial(jax.jit, static_argnames=("grid", "settls_order", "interp_order",
-                                   "return_traj", "kernel", "rebin",
-                                   "pallas_wy",
-                                   "pallas_wx",
-                                   "pallas_retry_tiles", "pallas_retry_wy",
-                                   "pallas_engine",
-                                   "return_overflow", "progress"))
+                                   "return_traj", "progress"))
 def parcel_propagation_core(u: jax.Array, v: jax.Array, timestep,
                             grid: Grid, *, settls_order: int = 0,
                             interp_order: int = 3,
                             return_traj: bool = False,
-                            kernel: str = "xla", rebin="auto",
-                            pallas_wy: int = 32,
-                            pallas_wx: int = 256,
-                            pallas_retry_tiles: int = 256,
-                            pallas_retry_wy: int = 64,
-                            pallas_engine: str = "auto",
-                            return_overflow: bool = False,
                             progress: bool = False):
     """Integrate parcel positions through ``T-1`` SETTLS steps.
 
@@ -759,6 +167,7 @@ def parcel_propagation_core(u: jax.Array, v: jax.Array, timestep,
     grid : static Grid.
     return_traj : if True, returns (T, ny, nx) stacked positions including
         the initial mesh; else the final (ny, nx) positions.
+    progress : log one line per step from inside the scan (host callback).
 
     Returns
     -------
@@ -774,23 +183,12 @@ def parcel_propagation_core(u: jax.Array, v: jax.Array, timestep,
     cv = prefilter(v, order=interp_order)
 
     dt = jnp.asarray(timestep, dtype=dtype)
-    conv_y = jnp.asarray(180.0 / (EARTH_RADIUS * np.pi), dtype=dtype)
-    lat_grid = jnp.asarray(grid.lats, dtype=dtype)
-    conv_x = (conv_y / jnp.abs(jnp.cos(lat_grid * (np.pi / 180.0))))[:, None]
+    conv_x = jnp.asarray(conv_x_factor(grid.lats), dtype=dtype)
 
     px0_np, py0_np = grid.mesh_xy
     px0 = jnp.asarray(px0_np, dtype=dtype)
     py0 = jnp.asarray(py0_np, dtype=dtype)
 
-    out = settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid,
-                      settls_order=settls_order, interp_order=interp_order,
-                      return_traj=return_traj, kernel=kernel, rebin=rebin,
-                      progress=progress,
-                      pallas_wy=pallas_wy, pallas_wx=pallas_wx,
-                      pallas_retry_tiles=pallas_retry_tiles,
-                      pallas_retry_wy=pallas_retry_wy,
-                      pallas_engine=pallas_engine)
-    *pos, overflow = out
-    if return_overflow:
-        return tuple(pos) + (overflow,)
-    return tuple(pos)
+    return settls_scan(u, v, cu, cv, px0, py0, dt, conv_x, grid,
+                       settls_order=settls_order, interp_order=interp_order,
+                       return_traj=return_traj, progress=progress)

@@ -1,9 +1,9 @@
 """Haversine distance + inverse-distance-weighted scattered interpolation.
 
-TPU-native re-design of the reference's numba kernels
+Re-design of the reference's numba kernels
 (/root/reference/LCS/tools.py:271-299): the O(N*M) double loop becomes one
-broadcast distance matrix + two matmul-shaped reductions — exactly the dense
-regular compute the MXU/VPU want.  ``idw_regrid`` replaces the xarray wrapper
+broadcast distance matrix + two matmul-shaped reductions — dense, regular
+compute that XLA maps onto the device's matrix units.  ``idw_regrid`` replaces the xarray wrapper
 ``xr_idx_interp`` (/root/reference/LCS/tools.py:302-333).
 """
 from __future__ import annotations
@@ -48,7 +48,9 @@ def idw_interpolate(x, y, z, xi, yi, power: float = 2.0):
     xi = jnp.asarray(xi); yi = jnp.asarray(yi)
     d = haversine(x[None, :], y[None, :], xi[:, None], yi[:, None])
     w = 1.0 / jnp.power(d, power)
-    return (w @ z) / jnp.sum(w, axis=1)
+    # HIGHEST: a float32 product may otherwise run in TF32 on GPUs
+    wz = jnp.matmul(w, z, precision=jax.lax.Precision.HIGHEST)
+    return wz / jnp.sum(w, axis=1)
 
 
 def idw_regrid(sample_lons, sample_lats, sample_vals, lons, lats,

@@ -1,4 +1,4 @@
-"""TPU-native spline interpolation of gridded fields at arbitrary parcel positions.
+"""Spline interpolation of gridded fields at arbitrary parcel positions.
 
 Re-implements the numerical contract of ``scipy.ndimage.map_coordinates`` as used
 by the reference's hot inner kernel ``xr_map_coordinates``
@@ -9,9 +9,7 @@ by the reference's hot inner kernel ``xr_map_coordinates``
 * spline order ``interp_order`` with ``mode='wrap'`` for rows away from the poles
   (/root/reference/LCS/tools.py:24-30) — the reference passes the order
   straight to scipy, so the full scipy surface (orders 0-5) is supported
-  here; the pallas TPU fast path covers the orders the reference's
-  workflows use ({1, 3} — default 3, /root/reference/LCS/LCS.py:51), other
-  orders evaluate through this XLA path;
+  here (default 3, the reference's LCS/LCS.py:51);
 * order-1 ``mode='constant'`` (cval=0) for the ``order`` rows nearest each pole
   (/root/reference/LCS/tools.py:31-39).
 
@@ -23,9 +21,9 @@ scipy semantics were reverse-engineered empirically and are reproduced exactly:
   exactly ``n-1``) are untouched;
 * **cubic prefilter** for ``mode='wrap'``: the solve of a plain tridiagonal
   system with boundary rows ``(4*c0 + 2*c1)/6 = x0`` (verified to machine
-  precision against ``scipy.ndimage.spline_filter1d``).  TPU-first design: the
-  inverse is precomputed once per grid size on the host and applied as a dense
-  matmul on the MXU instead of scipy's sequential IIR recursion;
+  precision against ``scipy.ndimage.spline_filter1d``).  The inverse is
+  precomputed once per grid size on the host and applied as a dense matmul
+  instead of scipy's sequential IIR recursion;
 * **evaluation taps** (4 per axis for order 3) are mirror-folded about the edge
   samples: ``idx < 0 -> -idx``, ``idx > n-1 -> 2*(n-1) - idx``.
 
@@ -86,9 +84,8 @@ def spline_filter_matrix(n: int, order: int = 3) -> np.ndarray:
     MIRRORED about the edge samples (scipy's wrap prefilter uses mirror
     boundaries; verified empirically, see tests/test_interp.py).  The
     order-3 band is [1, 4, 1]/6 with boundary rows ``(4 c0 + 2 c1)/6``.
-    TPU-first design: the inverse is precomputed once per grid size on the
-    host and applied as a dense matmul on the MXU instead of scipy's
-    sequential IIR recursion.
+    The inverse is precomputed once per grid size on the host and applied
+    as a dense matmul instead of scipy's sequential IIR recursion.
     """
     if order in (0, 1):
         return np.eye(n)
@@ -115,17 +112,12 @@ def prefilter(field: jax.Array, order: int = 3) -> jax.Array:
     """Separable 2-D spline prefilter over the trailing (lat, lon) axes.
 
     Equivalent to scipy's per-axis ``spline_filter1d(mode='wrap')`` but
-    expressed as two dense matmuls so it runs on the MXU.  Leading axes (e.g.
-    time) are batched.
-
-    (A banded fast path — the inverse's interior rows are Toeplitz with an
-    exponentially decaying band, so the product reduces to a (2K+1)-tap
-    convolution plus exact dense edge rows at ~1/15 the FLOPs — was built
-    round 5 and FALSIFIED on device: single-channel 1-D convs lower
-    catastrophically on TPU (418 ms vs the dense matmuls' true ~10.5 ms
-    once the ~55 ms probe-harness overhead is calibrated out;
-    tools/probe_outside.py prefcal leg, v5e 2026-08-21).  Git history has
-    the implementation; the dense MXU product IS the TPU-native answer.)
+    expressed as two dense matmuls.  Leading axes (e.g. time) are batched.
+    ``Precision.HIGHEST`` keeps the products in true float32 on GPUs (the
+    default may use TF32, about three decimal digits).  The inverse's
+    interior rows are Toeplitz with an exponentially decaying band, so an
+    O(n) banded form (a (2K+1)-tap convolution plus dense edge rows) is the
+    alternative to measure against these products.
     """
     if order in (0, 1):
         return field
@@ -330,8 +322,8 @@ def interp_at_parcels(field: jax.Array, coeffs: jax.Array,
 # Evaluating them together shares the entire index/weight computation (fold,
 # mirror, spline weights) and issues one gather per tap over a stacked
 # (F, ny*nx) operand — an F-fold reduction in kernel count versus calling
-# interp_at_parcels per field, which matters for both compile time and HBM
-# traffic on TPU.
+# interp_at_parcels per field, which matters for both compile time and
+# device-memory traffic.
 
 def _taps_and_weights(ys, xs, ny: int, nx: int, order: int):
     """Shared tap-index/weight computation for ``mode='wrap'`` evaluation."""

@@ -1,13 +1,13 @@
-"""Triangular spherical-harmonic truncation, TPU-first.
+"""Triangular spherical-harmonic truncation as dense linear algebra.
 
 Functional replacement for the reference's use of
 ``windspharm.xarray.VectorWind.truncate(..., truncation=20)``
 (/root/reference/LCS/LCS.py:115-118), which low-pass filters the wind
 components to total wavenumber <= T before global FTLE runs.
 
-windspharm delegates to spharm's Fortran grid<->spectral transforms.  The
-TPU-native design instead expresses the whole round-trip as dense linear
-algebra the MXU eats:
+windspharm delegates to spharm's Fortran grid<->spectral transforms.  This
+design instead expresses the whole round-trip as dense linear algebra that
+the device's matrix units run:
 
 * longitude -> zonal wavenumbers via ``jnp.fft.rfft`` (XLA-native FFT);
 * per zonal wavenumber ``m <= T``, the latitude profile is least-squares
@@ -126,7 +126,9 @@ def _truncate_jit(field: jax.Array, S: jax.Array, truncation: int) -> jax.Array:
     spec = jnp.fft.rfft(field, axis=-1)  # (..., ny, nx//2+1)
     keep = spec[..., : truncation + 1]   # zonal wavenumbers m <= T
     # batched matmul over m: out[..., y, m] = S[m] @ keep[..., :, m]
-    smoothed = jnp.einsum("myz,...zm->...ym", S.astype(keep.dtype), keep)
+    # HIGHEST: a float32 product may otherwise run in TF32 on GPUs
+    smoothed = jnp.einsum("myz,...zm->...ym", S.astype(keep.dtype), keep,
+                          precision=jax.lax.Precision.HIGHEST)
     out_spec = jnp.zeros_like(spec)
     out_spec = out_spec.at[..., : truncation + 1].set(smoothed)
     return jnp.fft.irfft(out_spec, n=nx, axis=-1).astype(field.dtype)

@@ -1,6 +1,6 @@
 """Finite-difference stencils on the sphere.
 
-TPU-native re-implementation of the reference's numba kernels:
+Re-implementation of the reference's numba kernels:
 
 * ``fourth_order_derivative`` (/root/reference/LCS/tools.py:190-245): 4th-order
   centred stencil ``(4/3)(f[+1]-f[-1])/2 - (1/3)(f[+2]-f[-2])/4`` with
@@ -12,7 +12,7 @@ TPU-native re-implementation of the reference's numba kernels:
   quirk Q6, /root/reference/LCS/tools.py:258).
 
 Instead of numba's scalar loops, everything is expressed as rolls/shifts that
-XLA fuses into a single vectorised pass on the VPU.
+XLA fuses into a single vectorised pass.
 """
 from __future__ import annotations
 

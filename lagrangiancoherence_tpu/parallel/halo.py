@@ -4,7 +4,7 @@ SURVEY.md §2: the only cross-chip communication the FTLE workload needs is a
 width-2 halo exchange of the departure-point fields at the flow-map-gradient
 stage (4th-order stencil) — everything else is communication-free data
 parallelism.  This module provides that exchange as explicit
-``lax.ppermute`` neighbor shifts (one hop over ICI each way) plus blocked
+``lax.ppermute`` neighbor shifts (one neighbour hop each way) plus blocked
 versions of the stencil / Gaussian ops that consume the padded blocks.
 
 All functions here run *inside* ``shard_map`` over a mesh axis ``"y"`` that

@@ -1,11 +1,13 @@
 """Device-mesh construction for the parcel-grid data parallelism.
 
 The reference has no distributed runtime at all (SURVEY.md §2: scale-out was
-one netCDF per batch job).  The TPU-native scale-out strategy is spatial data
+one netCDF per batch job).  The scale-out strategy here is spatial data
 parallelism over the parcel grid: a 1-D (or 2-D) ``jax.sharding.Mesh`` whose
 ``"y"`` axis shards latitude rows (and optionally ``"x"`` longitude columns),
 plus a ``"t"`` axis for batch/time parallelism in animation workloads.
-Collectives ride ICI via XLA; no custom transport.
+Collectives are XLA's (NCCL on GPUs); no custom transport.  GPUs of one
+host are joined all to all, so the mesh follows the algorithm, not a
+topology.
 """
 from __future__ import annotations
 

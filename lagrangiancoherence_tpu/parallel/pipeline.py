@@ -9,7 +9,7 @@ Scale-out design (SURVEY.md §2 'Parallelism strategies'):
   ``"y"``; every interpolation is a local gather;
 * the only cross-chip exchange in the whole pipeline is the width-2 halo of
   the departure-point blocks at the flow-map-gradient stage (4th-order lat
-  stencil) — two ``ppermute`` neighbour hops over ICI (parallel/halo.py);
+  stencil) — two ``ppermute`` neighbour hops (parallel/halo.py);
 * the closed-form norm is pointwise-local.
 
 Grids whose row count does not divide the device count are padded with
@@ -23,69 +23,77 @@ fields sharded over a ``"t"`` mesh axis — trivial DP, no communication.
 """
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
-
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 from ..grid import Grid
 from ..models.ftle import ftle_norm
 from ..models.pipeline import ftle_pipeline
-from ..models.settls import settls_scan
+from ..models.settls import conv_x_factor, settls_scan
 from ..ops.interp import prefilter
 from .halo import (derivative_spherical_blocked, exchange_cols_cyclic,
                    exchange_rows, fourth_order_dim1_blocked,
                    gaussian_filter_blocked)
 
-__all__ = ["ftle_sharded", "ftle_batch", "parcel_propagation_sharded"]
+__all__ = ["ftle_sharded", "ftle_batch", "parcel_propagation_sharded",
+           "shard_inputs"]
 
 EARTH_DEG = np.pi / 180.0
 
 
-def _pole_seed(grid: Grid, interp_order: int, kernel: str):
-    """Replicated pole-block seed for the sharded pole hoist
-    (models/settls.py ``hoist_shard``): initial mesh positions and the
-    home-latitude conv factor of the 2*order pole-home rows — a shard's
-    px0 block cannot supply other shards' rows, but the pole mesh rows
-    are deterministic from the grid."""
+def shard_inputs(u, v, grid: Grid, mesh, *, x_sharded: bool = False):
+    """Place the latitude-sharded pipelines' inputs on ``mesh``.
+
+    Winds are replicated; initial positions, the conv factor, latitudes and
+    home rows are sharded by latitude rows over ``"y"`` (positions also by
+    longitude over ``"x"`` when ``x_sharded``).  Returns a dict of device
+    arrays: ``u, v, px0, py0, convx, lats, home``.
+
+    Row padding up to a multiple of the ``"y"`` axis uses
+    SYMMETRIC-reflected rows (global row k >= ny maps to 2*ny-1-k, edge row
+    repeated — scipy 'reflect'): a padded parcel starts exactly where its
+    reflected row starts and is integrated with that row's home-row
+    metadata, so its trajectory is bit-identical — which makes the Gaussian
+    stage's reflect-padding at the south edge exact.
+    """
     ny = grid.shape[0]
-    if kernel != "pallas" or interp_order <= 0 or ny <= 2 * interp_order:
-        return None
-    pr = np.r_[0:interp_order, ny - interp_order:ny]
-    pxg, pyg = grid.mesh_xy
-    conv_y = 180.0 / (6371000.0 * np.pi)
-    cpole = (conv_y / np.abs(np.cos(grid.lats[pr] * EARTH_DEG)))[:, None]
-    return (pxg[pr], pyg[pr],
-            np.broadcast_to(cpole, pxg[pr].shape).copy())
+    nyd = mesh.shape["y"]
+    ny_pad = -(-ny // nyd) * nyd
+    dtype = jnp.asarray(u).dtype
+    home_idx = np.arange(ny_pad)
+    home_idx = np.where(home_idx < ny, home_idx, 2 * ny - 1 - home_idx)
+    px0, py0 = grid.mesh_xy
+    lats_pad = grid.lats[home_idx]
+
+    rep = NamedSharding(mesh, P())
+    shard_y = NamedSharding(mesh, P("y", None))
+    shard_pos = NamedSharding(mesh, P("y", "x" if x_sharded else None))
+
+    def put(a, sharding, dt=dtype):
+        return jax.device_put(jnp.asarray(a, dtype=dt), sharding)
+
+    return dict(u=put(u, rep), v=put(v, rep),
+                px0=put(px0[home_idx], shard_pos),
+                py0=put(py0[home_idx], shard_pos),
+                convx=put(conv_x_factor(lats_pad), shard_y),
+                lats=put(lats_pad, NamedSharding(mesh, P("y"))),
+                home=put(home_idx[:, None], shard_y, jnp.int32))
 
 
 def ftle_sharded(u, v, timestep, grid: Grid, mesh, *, settls_order: int = 0,
-                 interp_order: int = 3, sigma=None, compat: bool = True,
-                 kernel: str = "xla", return_overflow: bool = False):
+                 interp_order: int = 3, sigma=None, compat: bool = True):
     """(T, ny, nx) winds → (ny, nx) FTLE norm, sharded over ``mesh`` axis
-    ``"y"``.  Numerically identical to ``models.pipeline.ftle_pipeline``.
-
-    With ``return_overflow=True`` also returns the pallas window-overflow
-    flag (int32 scalar, max-reduced over every shard — nonzero means some
-    shard clamped a tap and the field is suspect; always 0 for the XLA
-    kernel).  Mirrors ``ftle_pipeline``'s ``return_overflow`` contract.
+    ``"y"`` (and optionally ``"x"``).  Numerically identical to
+    ``models.pipeline.ftle_pipeline``.
     """
     ny, nx = grid.shape
     nyd = mesh.shape["y"]
     nxd = mesh.shape.get("x", 1)
     x_axes = ("x",) if nxd > 1 else ()
     if nxd > 1:
-        if kernel == "pallas":
-            raise NotImplementedError(
-                "kernel='pallas' needs full-width latitude blocks; use a "
-                "1-D ('y',) mesh")
         if nx % nxd:
             raise ValueError(f"nx={nx} must divide the x mesh axis ({nxd})")
         if sigma is not None:
@@ -94,44 +102,20 @@ def ftle_sharded(u, v, timestep, grid: Grid, mesh, *, settls_order: int = 0,
                 "use a 1-D ('y',) mesh")
     rows = -(-ny // nyd)          # rows per shard (ceil)
     ny_pad = rows * nyd
-    dtype = jnp.asarray(u).dtype
-
-    # Host-side prep.  Row padding uses SYMMETRIC-reflected rows (global row
-    # k >= ny maps to 2*ny-1-k, edge row repeated — scipy 'reflect'): a
-    # padded parcel starts exactly where its reflected row starts and is
-    # integrated with that row's home-row metadata, so its trajectory is
-    # bit-identical — which makes the Gaussian stage's reflect-padding at
-    # the south edge exact.
-    pad = ny_pad - ny
-    home_idx = np.arange(ny_pad)
-    home_idx = np.where(home_idx < ny, home_idx, 2 * ny - 1 - home_idx)
-    px0_np, py0_np = grid.mesh_xy
-    px0_np = px0_np[home_idx]
-    py0_np = py0_np[home_idx]
-    lats_pad = grid.lats[home_idx]
-    conv_y = 180.0 / (6371000.0 * np.pi)
-    conv_x_np = (conv_y / np.abs(np.cos(lats_pad * EARTH_DEG)))[:, None]
-
-    dt = jnp.asarray(timestep, dtype=dtype)
+    pad = ny_pad - ny             # reflected pad rows (see shard_inputs)
+    dt = jnp.asarray(timestep, dtype=jnp.asarray(u).dtype)
     dlat = float(grid.lats[1] - grid.lats[0])
     dlon = float(grid.lons[1] - grid.lons[0])
     assert rows >= 2, (
         f"{rows} rows/shard < stencil halo width 2; use fewer devices")
-    pole_seed = _pole_seed(grid, interp_order, kernel)
 
     def block_fn(u_f, v_f, cu_f, cv_f, px0_b, py0_b, convx_b, lats_b,
                  home_b):
         row_start = jax.lax.axis_index("y") * rows
-        px, py, ovf = settls_scan(u_f, v_f, cu_f, cv_f, px0_b, py0_b, dt,
-                                  convx_b, grid, settls_order=settls_order,
-                                  interp_order=interp_order,
-                                  return_traj=False,
-                                  home_rows=home_b, kernel=kernel,
-                                  pole_seed=pole_seed)
-        # max-reduce the per-shard overflow flag over the whole mesh so the
-        # returned scalar is replicated (convention: the pallas overflow
-        # flag is never dropped — see ops/pallas_interp.py)
-        ovf = jax.lax.pmax(ovf, tuple(mesh.axis_names))
+        px, py = settls_scan(u_f, v_f, cu_f, cv_f, px0_b, py0_b, dt,
+                             convx_b, grid, settls_order=settls_order,
+                             interp_order=interp_order, return_traj=False,
+                             home_rows=home_b)
         if sigma is not None:
             if pad == 0:
                 # fully local: width-radius halo exchange, zero gather
@@ -140,7 +124,7 @@ def ftle_sharded(u, v, timestep, grid: Grid, mesh, *, settls_order: int = 0,
             else:
                 # pad rows break the reflect-at-block-edge identity; the
                 # smooth runs once per pipeline, so an all_gather of the two
-                # (ny, nx) departure fields (a few MB over ICI) + replicated
+                # (ny, nx) departure fields (a few MB) + replicated
                 # full-field smoothing is the simple exact fallback
                 def smooth_full(f):
                     full = jax.lax.all_gather(f, "y", axis=0, tiled=True)[:ny]
@@ -180,132 +164,72 @@ def ftle_sharded(u, v, timestep, grid: Grid, mesh, *, settls_order: int = 0,
         zero = jnp.zeros_like(X)
         tensor = jnp.stack([ds(X, 1), ds(X, 0), ds(Y, 1), ds(Y, 0),
                             ds(Z, 1), ds(Z, 0), zero, zero, zero])
-        return ftle_norm(tensor, compat=compat), ovf
+        return ftle_norm(tensor, compat=compat)
 
-    @partial(jax.jit, static_argnums=())
-    def run(u_j, v_j, px0, py0, convx, lats_j, home_j):
-        cu = prefilter(u_j, order=interp_order)
-        cv = prefilter(v_j, order=interp_order)
+    @jax.jit
+    def run(u, v, px0, py0, convx, lats, home):
+        cu = prefilter(u, order=interp_order)
+        cv = prefilter(v, order=interp_order)
         xs = x_axes[0] if x_axes else None
         fn = shard_map(block_fn, mesh=mesh, check_vma=False,
                        in_specs=(P(), P(), P(), P(),
                                  P("y", xs), P("y", xs),
                                  P("y", None), P("y"), P("y", None)),
-                       out_specs=(P("y", xs), P()))
-        return fn(u_j, v_j, cu, cv, px0, py0, convx, lats_j, home_j)
+                       out_specs=P("y", xs))
+        return fn(u, v, cu, cv, px0, py0, convx, lats, home)
 
-    rep = NamedSharding(mesh, P())
-    shard_y = NamedSharding(mesh, P("y", None))
-    shard_yx = NamedSharding(mesh, P("y", x_axes[0] if x_axes else None))
-    u_j = jax.device_put(jnp.asarray(u, dtype=dtype), rep)
-    v_j = jax.device_put(jnp.asarray(v, dtype=dtype), rep)
-    px0 = jax.device_put(jnp.asarray(px0_np, dtype=dtype), shard_yx)
-    py0 = jax.device_put(jnp.asarray(py0_np, dtype=dtype), shard_yx)
-    convx = jax.device_put(jnp.asarray(conv_x_np, dtype=dtype), shard_y)
-    lats_j = jax.device_put(jnp.asarray(lats_pad, dtype=dtype),
-                            NamedSharding(mesh, P("y")))
-    home_j = jax.device_put(jnp.asarray(home_idx[:, None], dtype=jnp.int32),
-                            shard_y)
-    out, overflow = run(u_j, v_j, px0, py0, convx, lats_j, home_j)
-    if return_overflow:
-        return out[:ny], overflow
+    out = run(**shard_inputs(u, v, grid, mesh, x_sharded=nxd > 1))
     return out[:ny]
 
 
 def parcel_propagation_sharded(u, v, timestep, grid: Grid, mesh, *,
                                settls_order: int = 0, interp_order: int = 3,
-                               return_traj: bool = False,
-                               kernel: str = "xla",
-                               return_overflow: bool = False):
+                               return_traj: bool = False):
     """Latitude-sharded SETTLS integration: (T, ny, nx) winds → departure
     points (ny, nx) or trajectories (T, ny, nx), sharded over mesh axis
-    ``"y"``.  Zero cross-chip communication (winds replicated, positions
+    ``"y"``.  Zero cross-device communication (winds replicated, positions
     sharded) — the integration itself never couples parcels.
-
-    ``return_overflow=True`` appends the mesh-max-reduced pallas window
-    overflow flag (int32 scalar; 0 for the XLA kernel).
     """
-    ny, nx = grid.shape
-    nyd = mesh.shape["y"]
-    rows = -(-ny // nyd)
-    ny_pad = rows * nyd
-    dtype = jnp.asarray(u).dtype
-
-    pad = ny_pad - ny
-    home_idx = np.arange(ny_pad)
-    home_idx = np.where(home_idx < ny, home_idx, 2 * ny - 1 - home_idx)
-    px0_np, py0_np = grid.mesh_xy
-    px0_np = px0_np[home_idx]
-    py0_np = py0_np[home_idx]
-    lats_pad = grid.lats[home_idx]
-    conv_y = 180.0 / (6371000.0 * np.pi)
-    conv_x_np = (conv_y / np.abs(np.cos(lats_pad * EARTH_DEG)))[:, None]
-    dt = jnp.asarray(timestep, dtype=dtype)
-
-    pole_seed = _pole_seed(grid, interp_order, kernel)
+    ny = grid.shape[0]
+    dt = jnp.asarray(timestep, dtype=jnp.asarray(u).dtype)
 
     def block_fn(u_f, v_f, cu_f, cv_f, px0_b, py0_b, convx_b, home_b):
-        out = settls_scan(u_f, v_f, cu_f, cv_f, px0_b, py0_b, dt,
-                          convx_b, grid, settls_order=settls_order,
-                          interp_order=interp_order,
-                          return_traj=return_traj, home_rows=home_b,
-                          kernel=kernel, pole_seed=pole_seed)
-        # max-reduce the overflow flag over the mesh → replicated scalar
-        # (convention: the pallas overflow flag is never dropped)
-        ovf = jax.lax.pmax(out[-1], tuple(mesh.axis_names))
-        return (*out[:-1], ovf)
+        return settls_scan(u_f, v_f, cu_f, cv_f, px0_b, py0_b, dt,
+                           convx_b, grid, settls_order=settls_order,
+                           interp_order=interp_order,
+                           return_traj=return_traj, home_rows=home_b)
 
     pos_spec = P(None, "y", None) if return_traj else P("y", None)
 
     @jax.jit
-    def run(u_j, v_j, px0, py0, convx, home_j):
-        cu = prefilter(u_j, order=interp_order)
-        cv = prefilter(v_j, order=interp_order)
+    def run(u, v, px0, py0, convx, home):
+        cu = prefilter(u, order=interp_order)
+        cv = prefilter(v, order=interp_order)
         fn = shard_map(block_fn, mesh=mesh, check_vma=False,
                        in_specs=(P(), P(), P(), P(),
                                  P("y", None), P("y", None),
                                  P("y", None), P("y", None)),
-                       out_specs=(pos_spec, pos_spec, P()))
-        return fn(u_j, v_j, cu, cv, px0, py0, convx, home_j)
+                       out_specs=(pos_spec, pos_spec))
+        return fn(u, v, cu, cv, px0, py0, convx, home)
 
-    rep = NamedSharding(mesh, P())
-    shard_y = NamedSharding(mesh, P("y", None))
-    u_j = jax.device_put(jnp.asarray(u, dtype=dtype), rep)
-    v_j = jax.device_put(jnp.asarray(v, dtype=dtype), rep)
-    px0 = jax.device_put(jnp.asarray(px0_np, dtype=dtype), shard_y)
-    py0 = jax.device_put(jnp.asarray(py0_np, dtype=dtype), shard_y)
-    convx = jax.device_put(jnp.asarray(conv_x_np, dtype=dtype), shard_y)
-    home_j = jax.device_put(jnp.asarray(home_idx[:, None], dtype=jnp.int32),
-                            shard_y)
-    px, py, overflow = run(u_j, v_j, px0, py0, convx, home_j)
+    ins = shard_inputs(u, v, grid, mesh)
+    del ins["lats"]
+    px, py = run(**ins)
     if return_traj:
-        px, py = px[:, :ny], py[:, :ny]
-    else:
-        px, py = px[:ny], py[:ny]
-    if return_overflow:
-        return px, py, overflow
-    return px, py
+        return px[:, :ny], py[:, :ny]
+    return px[:ny], py[:ny]
 
 
 def ftle_batch(u_batch, v_batch, timestep, grid: Grid, mesh, *,
                settls_order: int = 0, interp_order: int = 3, sigma=None,
-               compat: bool = True, kernel: str = "xla",
-               return_overflow: bool = False):
+               compat: bool = True):
     """Batched FTLE over independent wind fields (B, T, ny, nx), sharded over
     the ``"t"`` mesh axis — the animation workload's trivial data
-    parallelism (SURVEY.md §5 'long integration windows').
-
-    ``return_overflow=True`` appends the per-window pallas overflow flags
-    (int32, shape (B,); always 0 on the XLA kernel) — convention: the
-    pallas overflow flag is never dropped (CLAUDE.md)."""
+    parallelism (SURVEY.md §5 'long integration windows')."""
     fn = jax.vmap(lambda uu, vv: ftle_pipeline(
         uu, vv, timestep, grid, settls_order=settls_order,
-        interp_order=interp_order, sigma=sigma, compat=compat,
-        kernel=kernel, return_overflow=True))
+        interp_order=interp_order, sigma=sigma, compat=compat))
     sharded = NamedSharding(mesh, P("t", None, None, None))
     u_j = jax.device_put(jnp.asarray(u_batch), sharded)
     v_j = jax.device_put(jnp.asarray(v_batch), sharded)
-    out, overflow = jax.jit(fn)(u_j, v_j)
-    if return_overflow:
-        return out, overflow
-    return out
+    return jax.jit(fn)(u_j, v_j)

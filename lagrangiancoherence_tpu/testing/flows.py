@@ -4,22 +4,22 @@ Vectorised re-implementations of the reference's synthetic test flows
 (/root/reference/examples/ideal_vortex.py:11-208): ideal saddle, rotating
 saddle, uniform shear, and the Rankine-like moving vortex.  All return
 ``(u, v, lats, lons, times)`` with winds shaped (T, ny, nx) [m/s] —
-time-first, the storage convention of the TPU core.
+time-first, the storage convention of the JAX core.
 """
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
 
 __all__ = ["ideal_saddle", "rotating_saddle", "shear_flow", "ideal_vortex",
-           "VORTEX_CONFIG_EQUATOR", "VORTEX_CONFIG_SUBTROPICAL",
+           "jet_wave_winds", "VORTEX_CONFIG_EQUATOR", "VORTEX_CONFIG_SUBTROPICAL",
            "SADDLE_CONFIG", "SHEAR_FLOW_CONFIG"]
 
 
 def _grid(lat_min, lat_max, lon_min, lon_max, dx, dy, nt):
     lats = np.arange(lat_min, lat_max, dy, dtype=np.float64)
     lons = np.arange(lon_min, lon_max, dx, dtype=np.float64)
-    times = pd.date_range("2000-01-01", periods=nt, freq="6h").values
+    times = (np.datetime64("2000-01-01T00:00", "ns")
+             + np.arange(nt) * np.timedelta64(6, "h"))
     return lats, lons, times
 
 
@@ -89,6 +89,24 @@ def ideal_vortex(lat_min, lat_max, lon_min, lon_max, dx, dy, nt,
         u[t] = np.cos(theta) * mag + basic_zonal
         v[t] = np.where(new_x < 0, np.sin(theta), np.sin(theta + np.pi)) * mag
     return u, v, lats, lons, times
+
+
+def jet_wave_winds(lats, lons, nt, seed=0, dtype=np.float32):
+    """Global winds at atmospheric magnitudes, (nt, ny, nx) each: a 25 m/s
+    midlatitude jet with wavenumber-3 planetary waves, modulated by 5 % over
+    the record, whose 8-day backward FTLE (log sigma / 2) peaks around 2-3 —
+    the regime of the reference's ERA5 workloads.  ``seed`` draws the wave
+    phase (seed 0: phase 0)."""
+    phase = 0.0 if seed == 0 else \
+        float(np.random.default_rng(seed).uniform(0.0, 2.0 * np.pi))
+    LON, LAT = np.meshgrid(np.deg2rad(lons), np.deg2rad(lats))
+    base_u = 25.0 * np.cos(LAT) + 3.0 * np.cos(3 * LON + phase) \
+        * np.sin(2 * LAT)
+    base_v = 3.0 * np.sin(3 * LON + phase) * np.cos(2 * LAT)
+    t = np.arange(nt)[:, None, None]
+    u = base_u[None] * (1.0 + 0.05 * np.sin(2 * np.pi * t / nt))
+    v = base_v[None] * (1.0 + 0.05 * np.cos(2 * np.pi * t / nt))
+    return u.astype(dtype), v.astype(dtype)
 
 
 VORTEX_CONFIG_EQUATOR = dict(lat_min=-88, lat_max=89, lon_min=-180, lon_max=180,

@@ -67,7 +67,7 @@ class StageTimer:
 
 def device_memory_stats() -> dict[str, dict]:
     """Per-device memory statistics (bytes in use / limit), when the backend
-    exposes them (TPU does; CPU returns {})."""
+    exposes them (GPUs do; CPU returns {})."""
     import jax
     out = {}
     for d in jax.devices():

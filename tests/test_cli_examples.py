@@ -57,8 +57,7 @@ class TestCLI:
 
     def test_full_scipy_order_surface(self, tmp_path):
         # the CLI accepts every scipy spline order the library supports
-        # (0-5, ops/interp.py); orders outside the pallas set auto-fall
-        # back to the exact XLA kernel via api._resolve_kernel
+        # (0-5, ops/interp.py)
         inp = tmp_path / "winds.nc"
         lats, lons = write_winds(inp)
         for order in (0, 2, 5):

@@ -1,17 +1,11 @@
 """Committed f32 end-to-end accuracy bound (always-on CI variant).
 
-The TPU serving path runs the whole pipeline in float32 while the parity
-metric (BASELINE.json, <=1e-5) is defined against the f64 scipy oracle
-(/root/reference/LCS/LCS.py:152-154 semantics).  This test pins the f32
-*accumulation* divergence class — 32 SETTLS steps of roundoff through the
-scan — on CPU with the XLA kernel, so the bound holds in every CI run,
-not only when a TPU is attached (tests_tpu/test_device_parity.py pins the
-same bound for the Mosaic-compiled pallas kernel on hardware; the
-pallas-vs-xla kernel delta is pinned separately by the interpret-mode
-parity and fuzz suites).
-
-Config mirrors tests_tpu/test_device_parity.py::TestDeviceEndToEnd so the
-CPU and device artifacts are directly comparable.
+The accelerator serving path runs the whole pipeline in float32 while the
+parity metric (BASELINE.json, <=1e-5) is defined against the f64 scipy
+oracle (the reference's LCS/LCS.py:152-154 semantics).  This test pins the
+f32 *accumulation* divergence class — 8 SETTLS steps of roundoff through
+the scan — on CPU, so the bound holds in every CI run; ``chip_smoke.py``
+checks the same bound on the GPU at the 0.25-degree flagship width.
 """
 import jax
 import jax.numpy as jnp
@@ -19,11 +13,11 @@ import numpy as np
 
 from lagrangiancoherence_tpu.grid import Grid
 from lagrangiancoherence_tpu.models.pipeline import ftle_pipeline
+from lagrangiancoherence_tpu.testing.flows import jet_wave_winds
 from lagrangiancoherence_tpu.testing.oracle import oracle_ftle
 
-# Same bound as tests_tpu LOG_FTLE_P99_BOUND: measured ~3.5e-4 on device
-# (ROUND2_NOTES.md); 1.5e-3 bounds the f32 trajectory-divergence class
-# while failing loudly on tap/fold corruption (O(1e-2)+).
+# 1.5e-3 bounds the f32 trajectory-divergence class while failing loudly
+# on tap/fold corruption (O(1e-2)+).
 LOG_FTLE_P99_BOUND = 1.5e-3
 
 
@@ -33,19 +27,14 @@ def test_f32_log_ftle_p99_vs_f64_oracle():
     lats = np.linspace(-90.0, 90.0, ny)
     lons = np.linspace(-180.0, 179.0, nx)
     grid = Grid(lats=lats, lons=lons, cyclic_x=True)
-    LON, LAT = np.meshgrid(np.deg2rad(lons), np.deg2rad(lats))
-    base_u = 25.0 * np.cos(LAT) + 3.0 * np.cos(3 * LON) * np.sin(2 * LAT)
-    base_v = 3.0 * np.sin(3 * LON) * np.cos(2 * LAT)
-    t = np.arange(nt)[:, None, None]
-    u = base_u[None] * (1.0 + 0.05 * np.sin(2 * np.pi * t / nt))
-    v = base_v[None] * (1.0 + 0.05 * np.cos(2 * np.pi * t / nt))
+    u, v = jet_wave_winds(lats, lons, nt, dtype=np.float64)
 
     # the suite conftest enables x64; the serving path is f32 — drop to
     # 32-bit defaults for the pipeline leg only
     with jax.enable_x64(False):
         got = np.asarray(ftle_pipeline(
             jnp.asarray(u, jnp.float32), jnp.asarray(v, jnp.float32), dt,
-            grid, settls_order=2, interp_order=3, kernel="xla"))
+            grid, settls_order=2, interp_order=3))
     assert got.dtype == np.float32
 
     want = oracle_ftle(u, v, lats, lons, dt, settls_order=2,

@@ -3,7 +3,6 @@ import os
 
 import jax
 import numpy as np
-import pandas as pd
 import pytest
 
 from lagrangiancoherence_tpu.field import Field
@@ -141,27 +140,6 @@ class TestSeriesOptions:
             jnp.asarray(u[:5]), jnp.asarray(v[:5]), -6 * 3600.0, grid,
             settls_order=1))
         np.testing.assert_allclose(series.data[0], ref, atol=1e-10)
-
-    def test_mesh_overflow_warning(self, monkeypatch, caplog):
-        """The mesh branch must propagate the pallas overflow flag into the
-        series warning (the never-drop-the-flag convention)."""
-        if len(jax.devices()) < 2:
-            pytest.skip("needs 2 devices")
-        import lagrangiancoherence_tpu.parallel.pipeline as pp
-        from lagrangiancoherence_tpu.parallel.mesh import batch_mesh
-
-        def fake_batch(ub, vb, timestep, grid, mesh, *, return_overflow=False,
-                       **kw):
-            out = np.zeros((ub.shape[0],) + grid.shape)
-            flags = np.ones(ub.shape[0], dtype=np.int32)
-            return (out, flags) if return_overflow else out
-
-        monkeypatch.setattr(pp, "ftle_batch", fake_batch)
-        U, V, *_ = wind_fields()
-        with caplog.at_level("WARNING", logger="lagrangiancoherence_tpu"):
-            ftle_series(U, V, -6 * 3600.0, window=5, stride=5,
-                        settls_order=0, batch=2, mesh=batch_mesh(2))
-        assert any("clamped" in r.message for r in caplog.records)
 
     def test_mesh_tail_chunk_padded(self):
         """A tail chunk smaller than the mesh device count is padded to stay

@@ -92,18 +92,6 @@ class TestBatchParity:
         np.testing.assert_allclose(out, np.broadcast_to(ref, out.shape),
                                    atol=1e-12)
 
-    def test_batched_overflow_flags(self):
-        """``return_overflow=True`` yields per-window int flags, all zero on
-        the XLA kernel (never-drop-the-flag convention, CLAUDE.md)."""
-        u, v, grid = vortex_case()
-        ub = np.stack([u] * 4)
-        vb = np.stack([v] * 4)
-        out, flags = ftle_batch(ub, vb, -6 * 3600.0, grid, batch_mesh(4),
-                                settls_order=1, return_overflow=True)
-        flags = np.asarray(flags)
-        assert flags.shape == (4,)
-        assert np.all(flags == 0)
-
 
 class TestMeshConstruction:
     def test_parcel_mesh_axes(self):
@@ -183,39 +171,3 @@ class TestTwoDMesh:
         with pytest.raises(NotImplementedError):
             ftle_sharded(u, v, -6 * 3600.0, grid, mesh, settls_order=0,
                          sigma=1.0)
-
-    def test_pallas_with_x_sharding_rejected(self):
-        """Documented wontfix (docs/source/kernel.rst 'Mesh scaling'): the
-        pallas kernel needs full-width latitude blocks — its window
-        routing folds longitudes globally and the sort-binning key spans
-        the whole circle.  x-sharded meshes run the XLA kernel; scale-out
-        is 1-D latitude sharding (rows/TILE_R shards max)."""
-        u, v, grid = vortex_case()
-        mesh = parcel_mesh(8, x_parallel=2)
-        with pytest.raises(NotImplementedError, match="full-width"):
-            ftle_sharded(u, v, -6 * 3600.0, grid, mesh, settls_order=0,
-                         kernel="pallas")
-
-
-@needs_8_devices
-class TestShardedPallas:
-    """VERDICT round-1 item 5: the pallas fast path inside the sharded
-    pipeline — per-shard latitude blocks route their own windows, and the
-    pole special-case keys on GLOBAL home rows passed through shard_map."""
-
-    @pytest.mark.parametrize("n_dev", [2, 8])
-    def test_sharded_pallas_matches_single_xla(self, n_dev):
-        import lagrangiancoherence_tpu.ops.pallas_interp as PI
-        u, v, grid = vortex_case()
-        ref = np.asarray(ftle_pipeline(jnp.asarray(u), jnp.asarray(v),
-                                       -6 * 3600.0, grid, settls_order=2))
-        orig = PI.pallas_interp_multi
-        PI.pallas_interp_multi = \
-            lambda *a, **k: orig(*a, **{**k, "interpret": True})
-        try:
-            out = np.asarray(ftle_sharded(u, v, -6 * 3600.0, grid,
-                                          parcel_mesh(n_dev),
-                                          settls_order=2, kernel="pallas"))
-        finally:
-            PI.pallas_interp_multi = orig
-        np.testing.assert_allclose(out, ref, atol=1e-10)
